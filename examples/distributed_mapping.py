@@ -3,9 +3,9 @@
 The registration target (voxel maps of accumulated features) is sharded
 over the mesh "data" axis: every device owns capacity/D map slots, kNN
 runs as a collective (local top-k + global merge), and map insertion is
-owner-partitioned (mod-D by voxel key). On real hardware the mesh spans
-TPU chips over ICI; this example runs on 8 virtual CPU devices so it works
-anywhere:
+owner-partitioned (mod-D by voxel key). On a GPU host the mesh spans the
+cards (NCCL collectives); this example runs on 8 virtual CPU devices so it
+works anywhere:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/distributed_mapping.py
@@ -29,15 +29,17 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from loam_tpu import LidarParams, scan_to_map_init, scan_to_map_step
-    from loam_tpu.io import render_trajectory
-    from loam_tpu.odometry.scan_to_map import ScanToMapConfig
-    from loam_tpu.params import RegistrationParams
-    from loam_tpu.parallel.distributed import (
+    from loam_jax import LidarParams, scan_to_map_init, scan_to_map_step
+    from loam_jax.io import render_trajectory
+    from loam_jax.odometry.scan_to_map import ScanToMapConfig
+    from loam_jax.params import RegistrationParams
+    from loam_jax.profiling import enable_compile_cache
+    from loam_jax.parallel.distributed import (
         scan_to_map_init_sharded,
         scan_to_map_step_sharded,
     )
 
+    enable_compile_cache()
     devices = jax.devices()
     print(f"devices: {len(devices)} x {devices[0].platform}")
     mesh = jax.sharding.Mesh(np.asarray(devices), ("data",))
@@ -54,7 +56,7 @@ def main():
     reg = RegistrationParams(prior_weight=300.0)
 
     state_s = scan_to_map_init_sharded(config, mesh)
-    state_1 = scan_to_map_init(config, lidar=lidar)
+    state_1 = scan_to_map_init(config)
     traj_s, traj_1 = [], []
     for f in range(frames):
         state_s, pose_s, _ = scan_to_map_step_sharded(

@@ -29,12 +29,14 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from loam_tpu import LidarParams, extract_features, scan_to_map_init, scan_to_map_step
-    from loam_tpu.geometry import Pose3
-    from loam_tpu.io import default_world, render_scan
-    from loam_tpu.loop_closure import optimize_trajectory_with_closures
-    from loam_tpu.params import RegistrationParams
+    from loam_jax import LidarParams, extract_features, scan_to_map_init, scan_to_map_step
+    from loam_jax.geometry import Pose3
+    from loam_jax.io import default_world, render_scan
+    from loam_jax.loop_closure import optimize_trajectory_with_closures
+    from loam_jax.params import RegistrationParams
+    from loam_jax.profiling import enable_compile_cache
 
+    enable_compile_cache()
     lidar = LidarParams(16, 360, 0.5, 80.0)
     world = default_world(seed=2)
 
@@ -58,7 +60,7 @@ def main():
     n = len(scans)
 
     # 1) streaming scan-to-map odometry
-    state = scan_to_map_init(lidar=lidar)
+    state = scan_to_map_init()
     # tighter convergence than the reference defaults: each frame stops
     # below ~1 mm / 0.1 mrad instead of 1 cm, so drift accumulates slowly
     # prior_weight keeps blind frames (degenerate geometry) anchored to the

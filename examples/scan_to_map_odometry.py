@@ -27,16 +27,18 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from loam_tpu import (
+    from loam_jax import (
         LidarParams,
         RegistrationParams,
         checkpoint,
         scan_to_map_init,
         scan_to_map_step,
     )
-    from loam_tpu.evaluation import ate_rmse
-    from loam_tpu.io import render_trajectory
+    from loam_jax.evaluation import ate_rmse
+    from loam_jax.io import render_trajectory
+    from loam_jax.profiling import enable_compile_cache
 
+    enable_compile_cache()
     lidar = LidarParams(16, 512, 0.5, 80.0)
     reg = RegistrationParams(search_backend="grid")
     scans, poses = render_trajectory(
@@ -45,7 +47,7 @@ def main():
     )
     gt = np.stack([t for (_, t) in poses])
 
-    state = scan_to_map_init(lidar=lidar)
+    state = scan_to_map_init()
     if args.resume:
         state = checkpoint.load(args.resume, state)
         print(f"resumed from {args.resume} "

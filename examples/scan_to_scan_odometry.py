@@ -1,7 +1,7 @@
 """Scan-to-scan odometry over a synthetic trajectory.
 
-The TPU-native analogue of the reference README's user loop
-(``/root/reference/README.md:44-60``): stream scans, extract features,
+The compiled analogue of the reference README's user loop
+(reference ``README.md:44-60``): stream scans, extract features,
 register each against the previous, accumulate the pose.
 
     python examples/scan_to_scan_odometry.py [--frames 20] [--offline]
@@ -31,10 +31,12 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from loam_tpu import LidarParams, odometry_offline, scan_to_scan_init, scan_to_scan_step
-    from loam_tpu.evaluation import ate_rmse
-    from loam_tpu.io import render_trajectory
+    from loam_jax import LidarParams, odometry_offline, scan_to_scan_init, scan_to_scan_step
+    from loam_jax.evaluation import ate_rmse
+    from loam_jax.io import render_trajectory
+    from loam_jax.profiling import enable_compile_cache
 
+    enable_compile_cache()
     lidar = LidarParams(16, 512, 0.5, 80.0)
     scans, poses = render_trajectory(
         lidar, args.frames, step=np.array([0.10, 0.02, 0.0]), yaw_rate=0.015,

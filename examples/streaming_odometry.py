@@ -2,12 +2,12 @@
 
 The reference documents this flow as a serial user loop — read a scan file,
 extract features, register against the previous scan, compose
-(``/root/reference/README.md:44-60``). On a remote-attached accelerator
-that shape is upload-bound, so ``odometry_streaming`` restructures it:
-native loader threads read + project + pack scans ahead of the consumer,
-frames cross the wire in the 4-byte/point codec (``loam_tpu/io/packed.py``,
-quantization below sensor noise), and chunks of frames upload + register
-asynchronously while the next chunk is still being read.
+(reference ``README.md:44-60``). Run as written, reading, uploading and
+computing are serialized, so ``odometry_streaming`` overlaps them: native
+loader threads read + project + pack scans ahead of the consumer, frames
+upload in the 4-byte/point codec (``loam_jax/io/packed.py``, quantization
+below sensor noise), and chunks of frames upload + register asynchronously
+while the next chunk is still being read.
 
 Run: python examples/streaming_odometry.py [n_frames]
 """
@@ -24,10 +24,12 @@ import numpy as np
 def main():
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 24
 
-    from loam_tpu import LidarParams, odometry_streaming
-    from loam_tpu.evaluation import ate_rmse
-    from loam_tpu.io import render_trajectory
+    from loam_jax import LidarParams, odometry_streaming
+    from loam_jax.evaluation import ate_rmse
+    from loam_jax.io import render_trajectory
+    from loam_jax.profiling import enable_compile_cache
 
+    enable_compile_cache()
     lidar = LidarParams(16, 512, 0.5, 80.0)
 
     # Write a synthetic trajectory as KITTI-format .bin files (stand-in for

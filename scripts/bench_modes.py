@@ -1,11 +1,9 @@
-"""Run every bench mode and write BENCH_MODES_r{N}.json (VERDICT r3 #8).
+"""Run every bench mode, one after another, and collect their JSON lines.
 
-Each mode runs in a fresh subprocess (bench.py's guaranteed-emission
-machinery applies per mode: watchdog deadline, safe-mode retry, canary).
-The artifact records per-mode JSON lines plus the canary so non-headline
-regressions (like round-2's batched_pairs) can't hide between rounds.
+Each mode runs ``bench.py`` in its own subprocess, in turn, so only one
+process holds the GPU at a time; this parent process never imports JAX.
 
-Usage: python scripts/bench_modes.py [round_number] [deadline_per_mode_s]
+Usage: python scripts/bench_modes.py [out.json]   (default: chiprun_out/bench_modes.json)
 """
 
 import json
@@ -17,37 +15,28 @@ MODES = ["scan_to_scan", "batched_pairs", "scan_to_map", "dataset"]
 
 
 def main():
-    rnd = int(sys.argv[1]) if len(sys.argv) > 1 else 4
-    deadline = sys.argv[2] if len(sys.argv) > 2 else "900"
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        root, "chiprun_out", "bench_modes.json"
+    )
     out = {}
     for mode in MODES:
-        env = dict(os.environ)
-        env["LOAM_BENCH_MODE"] = mode
-        env["LOAM_BENCH_DEADLINE"] = deadline
-        try:
-            r = subprocess.run(
-                [sys.executable, os.path.join(root, "bench.py")],
-                env=env, capture_output=True, text=True,
-                timeout=float(deadline) + 60,
-            )
-            line = [l for l in r.stdout.splitlines() if l.startswith("{")]
-            try:
-                out[mode] = json.loads(line[-1]) if line else {
-                    "error": f"rc={r.returncode}", "stderr": r.stderr[-400:],
-                }
-            except (json.JSONDecodeError, IndexError) as e:
-                # a crashed subprocess can truncate its line mid-print; the
-                # artifact must still be written with the other modes
-                out[mode] = {"error": f"unparseable output ({e})",
-                             "raw": line[-1][:200] if line else ""}
-        except subprocess.TimeoutExpired:
-            out[mode] = {"error": "timeout"}
+        env = dict(os.environ, LOAM_BENCH_MODE=mode)
+        r = subprocess.run(
+            [sys.executable, os.path.join(root, "bench.py")],
+            env=env, capture_output=True, text=True,
+        )
+        lines = [l for l in r.stdout.splitlines() if l.startswith("{")]
+        out[mode] = json.loads(lines[-1]) if r.returncode == 0 and lines else {
+            "error": f"rc={r.returncode}", "stderr": r.stderr[-400:],
+        }
         print(f"{mode}: {json.dumps(out[mode])}", flush=True)
-    path = os.path.join(root, f"BENCH_MODES_r{rnd:02d}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {path}")
+    if any("error" in v for v in out.values()):
+        raise SystemExit("some modes failed")
 
 
 if __name__ == "__main__":

@@ -1,18 +1,15 @@
-"""HARDWARE ground-truth check of batched extraction vs the f64 oracle.
+"""Device check of extraction against the f64 NumPy oracle.
 
-Round-4 finding: on the current TPU runtime the VMAPPED forms of the
-non-default XLA fallback extraction stages MISCOMPILE — garbage picks at
-Ouster-64 batch scale (e.g. 2497 edges / 10 planars where the oracle says
-426 / 17174) — while single-frame forms, lax.map batching, CPU, and the
-production Pallas-kernel path (sector_sort=bitonic + feature_assemble=
-pallas + greedy_nms=pallas) are oracle-exact. This probe classifies every
-stage combination under both batching constructs against the pure-NumPy
-f64 oracle (ground truth independent of any JAX compilation).
+Runs ``extract_features`` on one 64x1024 f32 scan and
+``extract_features_batch`` (``vmap``) on F of them, on the default backend,
+and requires the selected index sequences to EQUAL the pure-NumPy f64
+oracle's (ground truth independent of any JAX compilation). This is the
+check for compiler rewrites that break the double-float selection math
+(FMA contraction) or miscompile the batched program.
 
-Run on a live TPU attach: python scripts/extract_oracle_check.py [FRAMES]
+Run: python scripts/extract_oracle_check.py [FRAMES]
 """
 
-import dataclasses
 import os
 import sys
 
@@ -21,107 +18,48 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax import lax
 
 
 def main():
     F = int(sys.argv[1]) if len(sys.argv) > 1 else 8
-    from loam_tpu import LidarParams, extract_features
-    from loam_tpu.params import FeatureExtractionParams
-    from loam_tpu.io import render_trajectory
-    from loam_tpu.oracle import oracle
-    from loam_tpu.profiling import force
+    from loam_jax import LidarParams, extract_features
+    from loam_jax.features import extract_features_batch
+    from loam_jax.io import render_trajectory
+    from loam_jax.oracle import oracle
+    from loam_jax.params import FeatureExtractionParams
+    from loam_jax.profiling import enable_compile_cache
 
+    enable_compile_cache()
     lidar = LidarParams(64, 1024, 0.5, 120.0)
+    params = FeatureExtractionParams()
     scans, _ = render_trajectory(
         lidar, F, step=np.array([0.08, 0.02, 0.0]), yaw_rate=0.01,
         noise=0.005, seed=0, dtype=np.float32,
     )
-    jscans = jnp.asarray(scans)
-    p = FeatureExtractionParams()
-    osets = []
-    for f in range(F):
-        e, pl_ = oracle.extract_features(scans[f].astype(np.float64), lidar, p)
-        osets.append((sorted(e), sorted(pl_)))
-    print("devices:", jax.devices(),
-          "oracle counts:", [(len(a), len(b)) for a, b in osets[:2]],
-          flush=True)
-
-    base = FeatureExtractionParams(
-        sector_sort="xla", feature_assemble="gather", greedy_nms="xla"
-    )
-    combos = [
-        ("xla/gather/xla (safe)", base),
-        ("auto (production)", p),
-        ("xla/gather/pallas",
-         dataclasses.replace(base, greedy_nms="pallas")),
-        ("bitonic/gather/pallas",
-         dataclasses.replace(base, sector_sort="bitonic", greedy_nms="pallas")),
-        ("xla/pallas/pallas",
-         dataclasses.replace(base, feature_assemble="pallas",
-                             greedy_nms="pallas")),
-        ("bitonic/pallas/xla",
-         dataclasses.replace(base, sector_sort="bitonic",
-                             feature_assemble="pallas")),
+    want = [
+        oracle.extract_features(s.astype(np.float64), lidar, params)
+        for s in scans
     ]
+    print("devices:", jax.devices(), flush=True)
 
-    def check(fs):
-        ei = np.asarray(fs.edge_indices)
-        em = np.asarray(fs.edge_mask)
-        pi = np.asarray(fs.planar_indices)
-        pm = np.asarray(fs.planar_mask)
-        for f in range(F):
-            if (sorted(ei[f][em[f]].tolist()) != osets[f][0]
-                    or sorted(pi[f][pm[f]].tolist()) != osets[f][1]):
-                return (f"WRONG (frame {f}: "
-                        f"e {int(em[f].sum())}/{len(osets[f][0])}, "
-                        f"p {int(pm[f].sum())}/{len(osets[f][1])})")
-        return "ORACLE-EXACT"
+    def picks(idx):
+        return [int(i) for i in np.asarray(idx) if i >= 0]
 
-    failures = 0
-    for name, pp in combos:
-        for bname, batch in (
-            ("vmap", lambda fn, s: jax.jit(
-                lambda x: jax.vmap(fn)(x))(s)),
-            ("lax.map", lambda fn, s: jax.jit(
-                lambda x: lax.map(fn, x))(s)),
-        ):
-            fs = batch(lambda x, q=pp: extract_features(x, lidar, q), jscans)
-            force(fs)
-            verdict = check(fs)
-            print(f"{bname:8s} {name:26s} {verdict}", flush=True)
-            # the production path and lax.map batching must ALWAYS be exact
-            if verdict != "ORACLE-EXACT" and (
-                bname == "lax.map" or "production" in name
-            ):
-                failures += 1
-    if failures:
-        raise SystemExit(f"{failures} required-exact configurations WRONG")
-    print("required-exact configurations all ORACLE-EXACT")
+    def same(fs, f):
+        return (picks(fs.edge_indices) == list(want[f][0])
+                and picks(fs.planar_indices) == list(want[f][1]))
 
-    # Round-5 guard check: the PUBLIC batch API must be oracle-exact for
-    # every configuration — extract_features_batch auto-drops to lax.map
-    # when a fallback stage is engaged on a TPU backend
-    # (features/extract.py::_fallback_stage_engaged). A failure here means
-    # the library fence regressed, not (only) the runtime.
-    from loam_tpu.features.extract import (
-        _fallback_stage_engaged, extract_features_batch,
+    single = same(extract_features(jnp.asarray(scans[0]), lidar, params), 0)
+    batch = jax.block_until_ready(
+        extract_features_batch(jnp.asarray(scans), lidar, params)
     )
-
-    assert os.environ.get("LOAM_EXTRACT_BATCH") in (None, ""), \
-        "unset LOAM_EXTRACT_BATCH for the guard check"
-    for name, pp in combos:
-        fs = extract_features_batch(jscans, lidar, pp)
-        force(fs)
-        verdict = check(fs)
-        fenced = _fallback_stage_engaged(pp, jscans.dtype)
-        print(f"batch-api {name:26s} fence={'map' if fenced else 'vmap'} "
-              f"{verdict}", flush=True)
-        if verdict != "ORACLE-EXACT":
-            raise SystemExit(f"public batch API WRONG for {name} — "
-                             f"library fence failed")
-    print("public batch API ORACLE-EXACT for all configurations "
-          "(fence engaged where required)")
+    wrong = [f for f in range(F)
+             if not same(jax.tree.map(lambda x: x[f], batch), f)]
+    print(f"single scan: {'ORACLE-EXACT' if single else 'WRONG'}")
+    print(f"vmap batch of {F}: "
+          f"{'ORACLE-EXACT' if not wrong else f'WRONG frames {wrong}'}")
+    if not single or wrong:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

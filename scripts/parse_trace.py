@@ -7,9 +7,9 @@ Usage:
 Finds the device "XLA Ops" track and computes SELF time per op (duration
 minus child durations via a stack walk over the time-sorted events), then
 aggregates by op name, HLO category, or source (file:line from event args).
-Standalone microbenchmarks of fusible ops are misleading on TPU — rank
-costs from a trace of the real pipeline (docs/PERFORMANCE.md "Profiling
-method").
+Standalone microbenchmarks of fusible ops are misleading (they miss the
+fusions of the real program) — rank costs from a trace of the real
+pipeline.
 
 Capture a trace:
     import jax

@@ -1,6 +1,6 @@
-"""Per-stage DEVICE timing of the pipeline on the default backend (TPU).
+"""Per-stage DEVICE timing of the pipeline on the default backend (a GPU).
 
-Uses ``loam_tpu.profiling.device_time`` (dispatch-amortized, CSE-proof).
+Uses ``loam_jax.profiling.device_time`` (dispatch-amortized, CSE-proof).
 Run: python scripts/profile_stages.py   [PROFILE_GRID=1 for grid kNN stages]
 """
 
@@ -13,7 +13,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from loam_tpu.profiling import device_time as _device_time
+from loam_jax.profiling import device_time as _device_time, enable_compile_cache
 
 
 def device_time(name, fn, x, *static_args, n=10):
@@ -23,15 +23,16 @@ def device_time(name, fn, x, *static_args, n=10):
 
 
 def main():
-    from loam_tpu import LidarParams, extract_features, knn
-    from loam_tpu.params import FeatureExtractionParams, RegistrationParams
-    from loam_tpu.geometry import fit_line, fit_plane, Pose3
-    from loam_tpu.io import render_trajectory
-    from loam_tpu.neighbors import build_grid, knn_grid
-    from loam_tpu.registration.associate import associate_edges, associate_planes
-    from loam_tpu.registration.solver import _Problem, lm_solve
-    from loam_tpu.registration.icf import _register
+    from loam_jax import LidarParams, extract_features, knn
+    from loam_jax.params import FeatureExtractionParams, RegistrationParams
+    from loam_jax.geometry import fit_line, fit_plane, Pose3
+    from loam_jax.io import render_trajectory
+    from loam_jax.neighbors import build_grid, knn_grid
+    from loam_jax.registration.associate import associate_edges, associate_planes
+    from loam_jax.registration.solver import _Problem, lm_solve
+    from loam_jax.registration.icf import _register
 
+    enable_compile_cache()
     print("devices:", jax.devices())
     lidar = LidarParams(64, 1024, 0.5, 120.0)
     feat_params = FeatureExtractionParams()

@@ -34,9 +34,9 @@ PLANAR_COLOR = "#2255dd"  # blue
 
 
 def load_scan(args):
-    from loam_tpu import LidarParams
-    from loam_tpu.io import project_range_image, read_kitti_bin, read_pcd
-    from loam_tpu.io import render_scan
+    from loam_jax import LidarParams
+    from loam_jax.io import project_range_image, read_kitti_bin, read_pcd
+    from loam_jax.io import render_scan
 
     lidar = LidarParams(args.scan_lines, args.points_per_line, args.min_range,
                         args.max_range)
@@ -57,7 +57,7 @@ def load_scan(args):
 
 def extract(scan, lidar, params):
     import jax.numpy as jnp
-    from loam_tpu import extract_features
+    from loam_jax import extract_features
 
     fs = extract_features(jnp.asarray(scan), lidar, params)
     edge, planar = fs.compact()
@@ -131,7 +131,7 @@ def main():
         matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    from loam_tpu import FeatureExtractionParams
+    from loam_jax import FeatureExtractionParams
 
     scan, lidar = load_scan(args)
     overrides = {

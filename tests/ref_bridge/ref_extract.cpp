@@ -5,7 +5,7 @@
 //
 // The point type carries its flat scan index alongside xyz, so the returned
 // LoamFeatures give index-exact pick lists to diff against the NumPy oracle
-// (loam_tpu/oracle/oracle.py) and the JAX pipeline — closing the round-2
+// (loam_jax/oracle/oracle.py) and the JAX pipeline — closing the round-2
 // trust gap where the bit-faithfulness chain ended at a hand transcription
 // of features-inl.h:11-180 / features.cpp:18-70 rather than at the
 // reference's own compiled code.

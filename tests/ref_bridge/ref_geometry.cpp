@@ -1,7 +1,7 @@
 // Differential-test bridge for the REFERENCE's geometry module: compiles
 // src/geometry.cpp straight from the reference checkout (nothing copied
 // into this repo) against the Eigen shim next door, and exposes a C ABI for
-// ctypes. Pins the compiled reference behaviors `loam_tpu/geometry.py`
+// ctypes. Pins the compiled reference behaviors `loam_jax/geometry.py`
 // must match:
 //   - fitLine PCA direction + the DEAD condition-number guard (the
 //     reference computes eig(2)/eig(0) without assigning it,

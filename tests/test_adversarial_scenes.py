@@ -21,7 +21,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from loam_tpu import (
+from loam_jax import (
     LidarParams,
     Pose3,
     RegistrationParams,
@@ -29,7 +29,7 @@ from loam_tpu import (
     feature_set_from_points,
     register_features,
 )
-from loam_tpu.geometry import quat_from_axis_angle
+from loam_jax.geometry import quat_from_axis_angle
 
 
 def _grid_plane(n=40, extent=2.0, origin=(0.0, 0.0, 0.0), axes=((1, 0, 0), (0, 1, 0))):

@@ -12,9 +12,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from loam_tpu.neighbors import knn_oracle
-from loam_tpu.params import RegistrationParams
-from loam_tpu.registration.associate import associate_edges, associate_planes
+from loam_jax.neighbors import knn_oracle
+from loam_jax.params import RegistrationParams
+from loam_jax.registration.associate import associate_edges, associate_planes
 
 
 @pytest.fixture(scope="module")

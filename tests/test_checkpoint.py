@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import checkpoint, scan_to_map_init, scan_to_map_step, LidarParams
-from loam_tpu.io import render_trajectory
+from loam_jax import checkpoint, scan_to_map_init, scan_to_map_step, LidarParams
+from loam_jax.io import render_trajectory
 
 
 def test_roundtrip_scan_to_map_state(tmp_path):
@@ -34,60 +34,3 @@ def test_schema_mismatch_rejected(tmp_path):
     checkpoint.save(p, {"a": jnp.zeros(3)})
     with pytest.raises(ValueError):
         checkpoint.load(p, {"a": jnp.zeros(3), "b": jnp.zeros(2)})
-
-
-def test_scan_to_map_cache_strip_rebuild_roundtrip(tmp_path, monkeypatch):
-    """Checkpointing a CACHED mapping state (round-5 prep cache): strip the
-    derived kNN prep cache before save, load into a plain template, then
-    re-derive — maps/poses identical, rebuilt cache matches a fresh build."""
-    import importlib
-
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from loam_tpu import (
-        LidarParams, checkpoint, scan_to_map_init, scan_to_map_offline,
-        scan_to_map_rebuild_cache, scan_to_map_strip_cache,
-    )
-    from loam_tpu.io import render_trajectory
-    from loam_tpu.odometry import scan_to_map as s2m
-
-    kp = importlib.import_module("loam_tpu.ops.knn_pallas")
-    monkeypatch.setattr(kp, "pallas_supported", lambda: True)
-    monkeypatch.setattr(s2m, "_use_prep_cache", lambda dtype: True)
-
-    lidar = LidarParams(8, 128, 0.5, 80.0)
-    scans, _ = render_trajectory(lidar, 3, noise=0.005, seed=4,
-                                 dtype=np.float32)
-    cfg = s2m.ScanToMapConfig(edge_capacity=512, planar_capacity=2048)
-    state, traj, _ = scan_to_map_offline(
-        jnp.asarray(scans), lidar, config=cfg
-    )
-    assert len(state.knn_prep_cache) == 14  # cached (windows included)
-
-    path = tmp_path / "s2m.npz"
-    checkpoint.save(str(path), scan_to_map_strip_cache(state))
-    # plain no-lidar template (cache-free) loads the stripped state
-    template = scan_to_map_strip_cache(scan_to_map_init(cfg))
-    loaded = checkpoint.load(str(path), template)
-    np.testing.assert_array_equal(
-        np.asarray(loaded.edge_map.mask), np.asarray(state.edge_map.mask)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(loaded.world_T_current.translation),
-        np.asarray(state.world_T_current.translation),
-    )
-    # re-derive the cache: equal to the carried one up to ulp-level
-    # FMA/fusion differences in the box rotation trig (the cache is an
-    # acceleration structure; culling bounds tolerate ulps by design)
-    rebuilt = scan_to_map_rebuild_cache(loaded, lidar)
-    assert len(rebuilt.knn_prep_cache) == 14
-    for a, b in zip(rebuilt.knn_prep_cache, state.knn_prep_cache):
-        a, b = np.asarray(a), np.asarray(b)
-        if a.dtype == bool:
-            np.testing.assert_array_equal(a, b)
-        else:
-            big = np.abs(b) > 1e30  # +-3e37 pad sentinels: compare exactly
-            np.testing.assert_array_equal(a[big], b[big])
-            np.testing.assert_allclose(a[~big], b[~big], atol=1e-5)

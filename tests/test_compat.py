@@ -6,8 +6,8 @@ through the compat names only.
 
 import numpy as np
 
-from loam_tpu import compat as loam
-from loam_tpu.io import render_trajectory
+from loam_jax import compat as loam
+from loam_jax.io import render_trajectory
 
 
 def test_quaternion_and_pose():
@@ -81,7 +81,7 @@ def test_point_type_adapters():
     structured arrays, attribute-style points, and plain lists all work."""
     import collections
 
-    from loam_tpu.adapters import as_points
+    from loam_jax.adapters import as_points
 
     pts = np.array([(1.0, 2.0, 3.0), (4.0, 5.0, 6.0)],
                    dtype=[("x", "f4"), ("y", "f4"), ("z", "f4")])

@@ -15,9 +15,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import LidarParams, odometry_offline
-from loam_tpu.evaluation import ate_rmse
-from loam_tpu.io import (
+from loam_jax import LidarParams, odometry_offline
+from loam_jax.evaluation import ate_rmse
+from loam_jax.io import (
     ScanLoader,
     project_range_image,
     read_kitti_bin,

@@ -1,6 +1,6 @@
-"""Numerical-health checks (loam_tpu/debug.py).
+"""Numerical-health checks (loam_jax/debug.py).
 
-The TPU analogue of the reference's "no races possible" sanitizer story:
+The accelerator analogue of the reference's "no races possible" sanitizer story:
 NaN/Inf poisoning of masked reductions must be detectable on demand, both
 host-side and inside jitted loops (SURVEY §5 race-detection row).
 """
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from loam_tpu.debug import check_finite, debug_nans_enabled, tap_finite
+from loam_jax.debug import check_finite, debug_nans_enabled, tap_finite
 
 
 def test_check_finite_clean():
@@ -76,7 +76,7 @@ def test_registration_guards_scrub_poisoned_point(monkeypatch):
     and the staged tap stays quiet — the poisoning the tap exists for is
     state corruption, covered below."""
     monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
-    from loam_tpu import (
+    from loam_jax import (
         RegistrationParams, feature_set_from_points, register_features
     )
 
@@ -98,7 +98,7 @@ def test_registration_tap_fires_on_poisoned_state(monkeypatch):
     propagated. The flag is read at trace time; distinct capacities here
     force a fresh trace."""
     monkeypatch.setenv("LOAM_DEBUG_NANS", "1")
-    from loam_tpu import (
+    from loam_jax import (
         Pose3, RegistrationParams, feature_set_from_points, register_features
     )
 

@@ -5,11 +5,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import LidarParams, extract_features, register_features
-from loam_tpu.dewarp import dewarp_scan
-from loam_tpu.geometry import Pose3, quat_from_axis_angle
-from loam_tpu.io import render_scan
-from loam_tpu.io.synthetic import render_scan_swept
+from loam_jax import LidarParams, extract_features, register_features
+from loam_jax.dewarp import dewarp_scan
+from loam_jax.geometry import Pose3, quat_from_axis_angle
+from loam_jax.io import render_scan
+from loam_jax.io.synthetic import render_scan_swept
 
 LIDAR = LidarParams(16, 360, 0.5, 80.0)
 Z = jnp.asarray([0.0, 0.0, 1.0])
@@ -84,7 +84,7 @@ def test_dewarp_improves_registration():
 def test_se3_exp_log_roundtrip_and_interpolation():
     """geometry.se3_exp/se3_log: inverse pair + the constant-twist
     composition law Exp(a xi) o Exp(b xi) = Exp((a+b) xi)."""
-    from loam_tpu.geometry import se3_exp, se3_log, quat_angular_distance
+    from loam_jax.geometry import se3_exp, se3_log, quat_angular_distance
 
     rng = np.random.default_rng(9)
     for _ in range(10):
@@ -107,7 +107,7 @@ def test_dewarp_exact_matches_composed_ground_truth_aggressive_motion():
     """exact=True recovers the END frame to f32 noise under a fast-yaw +
     long-translation constant twist where the default linear-translation
     law is centimeters off (the acknowledged approximation, dewarp.py)."""
-    from loam_tpu.geometry import se3_exp
+    from loam_jax.geometry import se3_exp
 
     L, P = LIDAR.scan_lines, LIDAR.points_per_line
     rng = np.random.default_rng(4)

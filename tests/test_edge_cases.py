@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from loam_tpu import (
+from loam_jax import (
     FeatureExtractionParams,
     LidarParams,
     RegistrationParams,
@@ -19,8 +19,8 @@ from loam_tpu import (
     feature_set_from_points,
     register_features,
 )
-from loam_tpu.io import render_scan
-from loam_tpu.oracle import extract_features as oracle_extract
+from loam_jax.io import render_scan
+from loam_jax.oracle import extract_features as oracle_extract
 
 LIDAR = LidarParams(8, 96, 0.5, 80.0)
 
@@ -41,7 +41,7 @@ def scan():
     ],
 )
 def test_degenerate_params_match_oracle(scan, params):
-    from loam_tpu import compute_curvature, compute_valid_points
+    from loam_jax import compute_curvature, compute_valid_points
 
     # isolate the greedy stage from FMA-level curvature differences by
     # feeding both paths the same curvature/mask (as the main oracle tests do)

@@ -14,15 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from loam_tpu import FeatureExtractionParams, LidarParams
-from loam_tpu import oracle
-from loam_tpu.features import (
+from loam_jax import FeatureExtractionParams, LidarParams
+from loam_jax import oracle
+from loam_jax.features import (
     compute_curvature,
     compute_valid_points,
     extract_features,
     extract_features_given,
 )
-from loam_tpu.io import render_scan
+from loam_jax.io import render_scan
 
 # Params used throughout the reference's feature tests:
 # {neighbor=5, sectors=6, max_e=5, max_p=5, edge_t=100, planar_t=0.1, occl=0.25, par=0.02}
@@ -243,35 +243,3 @@ class TestOracleParity:
         assert got_e == list(oe)
         assert got_p == list(op)
         assert len(got_p) > 10000  # the scan must actually be feature-rich
-
-
-def test_extract_features_batch_map_equals_vmap(monkeypatch):
-    """LOAM_EXTRACT_BATCH=map (the safe-mode batching construct, round 4)
-    must produce exactly the vmap result on every leaf."""
-    import jax
-
-    from loam_tpu.features import extract_features_batch
-    from loam_tpu.registration.icf import azimuth_sort_features
-
-    lidar = LidarParams(8, 128, 0.5, 80.0)
-    scans = np.stack([
-        render_scan(lidar, noise=0.01, seed=s, dtype=np.float32)
-        for s in range(3)
-    ])
-    outs = {}
-    for mode in ("vmap", "map"):
-        monkeypatch.setenv("LOAM_EXTRACT_BATCH", mode)
-        jax.clear_caches()
-        outs[mode] = extract_features_batch(
-            jnp.asarray(scans), lidar, FeatureExtractionParams(),
-            post=azimuth_sort_features,
-        )
-    for name in (
-        "edge_points", "edge_mask", "edge_indices",
-        "planar_points", "planar_mask", "planar_indices",
-    ):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(outs["vmap"], name)),
-            np.asarray(getattr(outs["map"], name)),
-            err_msg=name,
-        )

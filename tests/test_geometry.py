@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from loam_tpu import geometry as geo
-from loam_tpu.geometry import Pose3
+from loam_jax import geometry as geo
+from loam_jax.geometry import Pose3
 
 
 def quat(w, x, y, z):

@@ -1,6 +1,6 @@
 """Loop-level ICF parity vs the scalar NumPy oracle.
 
-``loam_tpu.oracle.icf_oracle.register_oracle`` is a plain-Python
+``loam_jax.oracle.icf_oracle.register_oracle`` is a plain-Python
 transcription of the reference's registration control flow
 (``registration-inl.h:28-74`` / ``registration.cpp:23-103``) with this
 framework's f64 solver numerics. These tests assert the JAX
@@ -14,14 +14,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from loam_tpu import (
+from loam_jax import (
     Pose3,
     RegistrationParams,
     TerminationType,
     feature_set_from_points,
     register_features,
 )
-from loam_tpu.oracle.icf_oracle import register_oracle
+from loam_jax.oracle.icf_oracle import register_oracle
 
 from test_registration import simple_scene
 

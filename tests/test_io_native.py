@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from loam_tpu.io import native
+from loam_jax.io import native
 
 
 @pytest.fixture(scope="module")

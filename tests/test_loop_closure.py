@@ -11,10 +11,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import LidarParams, extract_features, feature_set_from_points
-from loam_tpu.geometry import Pose3, quat_exp, quat_multiply, quat_normalize
-from loam_tpu.io import render_scan, default_world
-from loam_tpu.loop_closure import (
+from loam_jax import LidarParams, extract_features, feature_set_from_points
+from loam_jax.geometry import Pose3, quat_exp, quat_multiply, quat_normalize
+from loam_jax.io import render_scan, default_world
+from loam_jax.loop_closure import (
     closure_edges,
     optimize_trajectory_with_closures,
     propose_candidates,

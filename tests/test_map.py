@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from loam_tpu import voxel_map_empty, voxel_map_insert
+from loam_jax import voxel_map_empty, voxel_map_insert
 
 
 def test_insert_downsamples_to_one_per_voxel():
@@ -55,43 +55,31 @@ def test_mask_respected():
     assert int(m.size) == 1
 
 
-def test_insert_bitonic_impl_exact_equality():
-    """The scatter-free bitonic insert path produces the identical map."""
-    import numpy as np
-
+def test_insert_impl_exact_equality():
+    """The scatter-free two-sort insert produces the identical map to the
+    one-sort + compaction-scatter form."""
     rng = np.random.default_rng(12)
     m_a = voxel_map_empty(512, 0.4)
-    m_b = voxel_map_empty(512, 0.4)
     m_c = voxel_map_empty(512, 0.4)
     for i in range(3):
         pts = jnp.asarray(rng.uniform(-20, 20, (300, 3)).astype(np.float32))
         mask = jnp.asarray(rng.uniform(size=300) > 0.2)
         center = jnp.asarray([float(i), 0.0, 0.0], jnp.float32)
         m_a, d_a = voxel_map_insert(m_a, pts, mask, center, 25.0, impl="scatter")
-        m_b, d_b = voxel_map_insert(m_b, pts, mask, center, 25.0, impl="bitonic")
         m_c, d_c = voxel_map_insert(m_c, pts, mask, center, 25.0, impl="sort2")
-        assert int(d_a) == int(d_b) == int(d_c)
-        np.testing.assert_array_equal(np.asarray(m_a.mask), np.asarray(m_b.mask))
-        np.testing.assert_array_equal(
-            np.asarray(m_a.points), np.asarray(m_b.points)
-        )
+        assert int(d_a) == int(d_c)
         np.testing.assert_array_equal(np.asarray(m_a.mask), np.asarray(m_c.mask))
         np.testing.assert_array_equal(
             np.asarray(m_a.points), np.asarray(m_c.points)
         )
 
 
-def test_insert_bitonic_impl_overflow_equality():
-    import numpy as np
-
+def test_insert_impl_overflow_equality():
     rng = np.random.default_rng(13)
     pts = jnp.asarray(rng.uniform(-30, 30, (2000, 3)).astype(np.float32))
     mask = jnp.ones((2000,), bool)
     m_a, d_a = voxel_map_insert(voxel_map_empty(64, 0.3), pts, mask, impl="scatter")
-    m_b, d_b = voxel_map_insert(voxel_map_empty(64, 0.3), pts, mask, impl="bitonic")
     m_c, d_c = voxel_map_insert(voxel_map_empty(64, 0.3), pts, mask, impl="sort2")
-    assert int(d_a) == int(d_b) == int(d_c) and int(d_a) > 0
+    assert int(d_a) == int(d_c) and int(d_a) > 0
     np.testing.assert_array_equal(np.asarray(m_a.mask), np.asarray(m_c.mask))
     np.testing.assert_array_equal(np.asarray(m_a.points), np.asarray(m_c.points))
-    np.testing.assert_array_equal(np.asarray(m_a.mask), np.asarray(m_b.mask))
-    np.testing.assert_array_equal(np.asarray(m_a.points), np.asarray(m_b.points))

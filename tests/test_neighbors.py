@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from loam_tpu.neighbors import build_grid, knn, knn_grid, knn_oracle
+from loam_jax.neighbors import build_grid, knn, knn_grid, knn_oracle
 
 
 def _random_sets(seed, m=257, q=101, pad=40):

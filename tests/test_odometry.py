@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import (
+from loam_jax import (
     LidarParams,
     RegistrationParams,
     odometry_offline,
@@ -21,8 +21,8 @@ from loam_tpu import (
     scan_to_scan_init,
     scan_to_scan_step,
 )
-from loam_tpu.evaluation import ate_rmse, rpe, rpe_rmse, umeyama_alignment
-from loam_tpu.io import render_trajectory
+from loam_jax.evaluation import ate_rmse, rpe, rpe_rmse, umeyama_alignment
+from loam_jax.io import render_trajectory
 
 LIDAR = LidarParams(16, 360, 0.5, 80.0)
 N_FRAMES = 6
@@ -167,8 +167,8 @@ def test_rpe_matches_hand_computed():
 def test_scan_to_map_offline_matches_streaming(trajectory):
     # the lax.scan-driven whole-trajectory driver must reproduce the
     # streaming step loop exactly (same step function, same carry)
-    from loam_tpu import scan_to_map_offline
-    from loam_tpu.odometry.scan_to_map import ScanToMapConfig
+    from loam_jax import scan_to_map_offline
+    from loam_jax.odometry.scan_to_map import ScanToMapConfig
 
     scans, gt = trajectory
     cfg = ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
@@ -189,38 +189,3 @@ def test_scan_to_map_offline_matches_streaming(trajectory):
     np.testing.assert_array_equal(
         np.asarray(fstate.edge_map.mask), np.asarray(state.edge_map.mask)
     )
-
-
-def test_scan_to_map_prep_cache_path_matches_uncached(trajectory, monkeypatch):
-    """The rebuild-on-insert kNN prep cache (round 4) must be a pure
-    restructuring: trajectories and maps exactly equal the uncached Pallas
-    path (kernel in interpret mode on CPU)."""
-    import jax
-
-    from loam_tpu import scan_to_map_offline
-    from loam_tpu.odometry import scan_to_map as s2m
-
-    scans, gt = trajectory
-    cfg = s2m.ScanToMapConfig(edge_capacity=2048, planar_capacity=8192)
-    reg = RegistrationParams(search_backend="bruteforce", prior_weight=300.0)
-
-    import importlib
-
-    kp = importlib.import_module("loam_tpu.ops.knn_pallas")
-    outs = {}
-    for arm, active in (("cached", True), ("plain", False)):
-        jax.clear_caches()
-        monkeypatch.setattr(s2m, "_use_prep_cache", lambda dtype: active)
-        monkeypatch.setattr(kp, "pallas_supported", lambda: True)
-        state, traj, details = scan_to_map_offline(
-            jnp.asarray(scans), LIDAR, reg_params=reg, config=cfg
-        )
-        outs[arm] = (
-            np.asarray(traj.translation),
-            np.asarray(state.edge_map.mask),
-            np.asarray(state.planar_map.mask),
-        )
-        assert (state.knn_prep_cache != ()) == active
-    np.testing.assert_array_equal(outs["cached"][0], outs["plain"][0])
-    np.testing.assert_array_equal(outs["cached"][1], outs["plain"][1])
-    np.testing.assert_array_equal(outs["cached"][2], outs["plain"][2])

@@ -6,14 +6,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import LidarParams, odometry_offline
-from loam_tpu.params import FeatureExtractionParams, RegistrationParams
-from loam_tpu.parallel import (
+from loam_jax import LidarParams, odometry_offline
+from loam_jax.params import FeatureExtractionParams, RegistrationParams
+from loam_jax.parallel import (
     extract_features_sharded,
     make_mesh,
     odometry_offline_sharded,
 )
-from loam_tpu.io import render_trajectory
+from loam_jax.io import render_trajectory
 
 LIDAR = LidarParams(8, 128, 0.5, 80.0)
 FEAT = FeatureExtractionParams(number_sectors=2)
@@ -36,7 +36,7 @@ def test_devices_available():
 def test_sharded_extraction_matches_single(scans):
     mesh = make_mesh(line_axis=2)
     sharded = extract_features_sharded(scans, LIDAR, mesh, FEAT)
-    from loam_tpu import extract_features
+    from loam_jax import extract_features
 
     single = jax.vmap(lambda s: extract_features(s, LIDAR, FEAT))(scans)
     np.testing.assert_allclose(
@@ -72,10 +72,10 @@ def test_sharded_registration_matches_single():
     """Registration against a target sharded over 8 devices must match the
     single-device result (same associations, same tie-breaking)."""
     import jax.numpy as jnp
-    from loam_tpu import RegistrationParams, feature_set_from_points, register_features
-    from loam_tpu.geometry import Pose3, quat_from_axis_angle
-    from loam_tpu.parallel import make_mesh
-    from loam_tpu.parallel.distributed import register_features_sharded
+    from loam_jax import RegistrationParams, feature_set_from_points, register_features
+    from loam_jax.geometry import Pose3, quat_from_axis_angle
+    from loam_jax.parallel import make_mesh
+    from loam_jax.parallel.distributed import register_features_sharded
 
     rng = np.random.default_rng(7)
     # synthetic planes + edges, padded to shard-divisible capacities
@@ -136,9 +136,9 @@ def test_sharded_registration_matches_single():
 
 def test_sharded_voxel_map_matches_single():
     import jax.numpy as jnp
-    from loam_tpu import voxel_map_empty, voxel_map_insert
-    from loam_tpu.parallel import make_mesh
-    from loam_tpu.parallel.distributed import sharded_map_empty, sharded_map_insert
+    from loam_jax import voxel_map_empty, voxel_map_insert
+    from loam_jax.parallel import make_mesh
+    from loam_jax.parallel.distributed import sharded_map_empty, sharded_map_insert
 
     rng = np.random.default_rng(3)
     pts = jnp.asarray(rng.uniform(-10, 10, (500, 3)).astype(np.float32))
@@ -165,10 +165,10 @@ def test_sharded_scan_to_map_matches_single(scans):
     + mod-D sharded map insert in one jitted step) must track the
     single-device scan-to-map driver over a >=10-frame trajectory: same
     keyframe decisions, same map occupancy, same poses (fp tolerance)."""
-    from loam_tpu import scan_to_map_init, scan_to_map_step
-    from loam_tpu.odometry.scan_to_map import ScanToMapConfig
-    from loam_tpu.parallel import make_mesh
-    from loam_tpu.parallel.distributed import (
+    from loam_jax import scan_to_map_init, scan_to_map_step
+    from loam_jax.odometry.scan_to_map import ScanToMapConfig
+    from loam_jax.parallel import make_mesh
+    from loam_jax.parallel.distributed import (
         scan_to_map_init_sharded,
         scan_to_map_step_sharded,
     )

@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from loam_tpu.geometry import Pose3, quat_exp, quat_multiply, quat_normalize, quat_rotate
-from loam_tpu.pose_graph import (
+from loam_jax.geometry import Pose3, quat_exp, quat_multiply, quat_normalize, quat_rotate
+from loam_jax.pose_graph import (
     PoseGraphEdges,
     make_edges,
     odometry_edges,
@@ -139,8 +139,8 @@ def test_masked_edges_ignored():
 
 def test_sharded_solve_matches_single():
     """Edge-sharded (psum-reduced) solve equals the single-device solve."""
-    from loam_tpu.parallel import make_mesh
-    from loam_tpu.pose_graph import optimize_pose_graph_sharded
+    from loam_jax.parallel import make_mesh
+    from loam_jax.pose_graph import optimize_pose_graph_sharded
 
     gt = _make_square_trajectory(n_per_side=2)
     edges = _perturb_edges(odometry_edges(gt), 0.002, 0.01, seed=5)

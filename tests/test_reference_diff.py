@@ -5,7 +5,7 @@ headers and ``src/features.cpp`` directly from the reference checkout against
 a minimal Eigen shim) and asserts that on random scans the reference's
 ``extractFeatures`` picks exactly the same feature indices as
 
-  1. the NumPy oracle (``loam_tpu/oracle/oracle.py``) — validating that the
+  1. the NumPy oracle (``loam_jax/oracle/oracle.py``) — validating that the
      oracle is a faithful transcription of ``features-inl.h:11-180`` +
      ``features.cpp:18-70``, not a shared misreading, and
   2. the JAX pipeline (f32 scan, compensated double-float selection) — the
@@ -29,10 +29,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from loam_tpu import LidarParams, extract_features
-from loam_tpu.params import FeatureExtractionParams
-from loam_tpu.io import render_scan
-from loam_tpu.oracle import oracle
+from loam_jax import LidarParams, extract_features
+from loam_jax.params import FeatureExtractionParams
+from loam_jax.io import render_scan
+from loam_jax.oracle import oracle
 
 _REF = "/root/reference"
 _BRIDGE = os.path.join(os.path.dirname(__file__), "ref_bridge")

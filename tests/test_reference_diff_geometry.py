@@ -3,7 +3,7 @@
 Builds ``tests/ref_bridge/ref_geometry.cpp`` (which #includes the reference's
 ``loam/geometry.h`` and compiles ``src/geometry.cpp`` straight from the
 reference checkout against the extended Eigen shim) and diffs, on random
-neighborhoods and random poses, against ``loam_tpu/geometry.py``:
+neighborhoods and random poses, against ``loam_jax/geometry.py``:
 
   1. ``fitLine`` (``geometry.cpp:42-59``): line center, direction (up to
      eigenvector sign), and — the consumed quantity — point-to-line
@@ -42,7 +42,7 @@ import pytest
 
 import jax
 
-from loam_tpu.geometry import (
+from loam_jax.geometry import (
     Pose3,
     fit_line,
     fit_plane,

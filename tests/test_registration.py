@@ -13,7 +13,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from loam_tpu import (
+from loam_jax import (
     Pose3,
     RegistrationParams,
     TerminationType,
@@ -21,7 +21,7 @@ from loam_tpu import (
     register_features,
     register_features_batch,
 )
-from loam_tpu.geometry import quat_from_axis_angle, quat_rotate
+from loam_jax.geometry import quat_from_axis_angle, quat_rotate
 
 
 def simple_scene(step=0.1):
@@ -80,7 +80,7 @@ def _check_roundtrip(source_T_target: Pose3, rot_tol=1e-4, trans_tol=1e-3, **kw)
 
 
 def _compose_quat(q1, q2):
-    from loam_tpu.geometry import quat_multiply
+    from loam_jax.geometry import quat_multiply
 
     return quat_multiply(jnp.asarray(q1), jnp.asarray(q2))
 
@@ -239,8 +239,8 @@ def test_plane_avg_dist_guard_is_inert():
     # PCA fit that mean is exactly 0 by construction, so the guard can never
     # fire at any threshold >= 0 — pinned here (see params.py note).
     import jax
-    from loam_tpu.geometry import fit_plane
-    from loam_tpu.registration.associate import associate_planes
+    from loam_jax.geometry import fit_plane
+    from loam_jax.registration.associate import associate_planes
 
     rng = np.random.default_rng(3)
     pts = rng.normal(size=(16, 5, 3))  # noisy, decidedly non-planar

@@ -1,15 +1,12 @@
-"""Streaming file-fed odometry + packed scan transport (round 5).
+"""Streaming file-fed odometry + packed scan transport.
 
-Covers the three layers of the streaming dataset path
-(VERDICT r4 item 1):
+Covers the two layers of the streaming dataset path:
 
   1. the 4-byte/point wire codec (``io/packed.py`` + the native packed
      projection): roundtrip error bounds, native/NumPy agreement;
   2. ``odometry_streaming``: parity with ``odometry_offline`` (same math,
      chunk-carried boundary features + motion prior), array and file
-     sources, packed and raw transports, chunk-tail padding;
-  3. the library fence for the TPU vmap miscompile
-     (``extract_features_batch`` auto-``lax.map``, VERDICT r4 item 2).
+     sources, packed and raw transports, chunk-tail padding.
 """
 
 import os
@@ -20,9 +17,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu import LidarParams, odometry_offline, odometry_streaming
-from loam_tpu.evaluation import ate_rmse
-from loam_tpu.io import (
+from loam_jax import LidarParams, odometry_offline, odometry_streaming
+from loam_jax.evaluation import ate_rmse
+from loam_jax.io import (
     PACKED_R_MAX,
     ScanLoader,
     decode_packed,
@@ -30,7 +27,6 @@ from loam_tpu.io import (
     project_packed_numpy,
     render_trajectory,
 )
-from loam_tpu.params import FeatureExtractionParams
 
 LIDAR = LidarParams(16, 256, 0.5, 120.0)
 N_FRAMES = 10
@@ -150,7 +146,7 @@ def test_native_packed_matches_numpy_on_generic_cloud():
     native and NumPy packed projections agree almost everywhere, and every
     disagreement is an epsilon cell-boundary flip (adjacent cell), not a
     value error."""
-    from loam_tpu.io import native
+    from loam_jax.io import native
 
     if not native.native_available():
         pytest.skip("native library unavailable")
@@ -269,103 +265,6 @@ def test_streaming_empty_source_raises():
         odometry_streaming(iter([]), LIDAR)
 
 
-# ---------------------------------------------------------------------------
-# vmap-miscompile fence (library-level, VERDICT r4 item 2)
-# ---------------------------------------------------------------------------
-
-def test_fallback_fence_resolution(monkeypatch):
-    """When any extraction stage resolves to an XLA fallback impl on a
-    Pallas-capable backend, the public batch API must drop to lax.map."""
-    from loam_tpu.features import extract as ex
-
-    import importlib
-
-    kp = importlib.import_module("loam_tpu.ops.knn_pallas")
-    ap = importlib.import_module("loam_tpu.ops.assemble_pallas")
-    monkeypatch.setattr(kp, "pallas_supported", lambda: True)
-    # conftest froze the interpret coverage flag on at import; the fence
-    # treats interpret-on-TPU as fallback territory, so simulate a real
-    # (non-interpret) TPU for the resolution assertions and check the
-    # interpret rule separately below
-    monkeypatch.setattr(ap, "_INTERPRET", False)
-    f32 = jnp.float32
-    assert not ex._fallback_stage_engaged(FeatureExtractionParams(), f32)
-    for kw in (
-        {"sector_sort": "xla"},
-        {"feature_assemble": "gather"},
-        {"greedy_nms": "xla"},
-    ):
-        assert ex._fallback_stage_engaged(FeatureExtractionParams(**kw), f32)
-    # auto sector sort on non-f32 resolves to the xla fallback -> fenced
-    assert ex._fallback_stage_engaged(FeatureExtractionParams(), jnp.float64)
-    # interpret mode on a TPU backend swaps kernels for staged-XLA forms:
-    # conservatively fenced
-    monkeypatch.setattr(ap, "_INTERPRET", True)
-    assert ex._fallback_stage_engaged(FeatureExtractionParams(), f32)
-    monkeypatch.setattr(ap, "_INTERPRET", False)
-    # off-TPU: no fence
-    monkeypatch.setattr(kp, "pallas_supported", lambda: False)
-    assert not ex._fallback_stage_engaged(
-        FeatureExtractionParams(sector_sort="xla"), f32
-    )
-
-
-def test_fallback_fence_forces_map(monkeypatch, traj_data):
-    """With a (simulated) TPU backend and a fallback stage engaged, the
-    public batch entry must resolve to the lax.map construct, and the env
-    knob must override in both directions."""
-    import importlib
-
-    from loam_tpu.features import extract as ex
-
-    kp = importlib.import_module("loam_tpu.ops.knn_pallas")
-    ap = importlib.import_module("loam_tpu.ops.assemble_pallas")
-    scans, _ = traj_data
-    monkeypatch.setattr(kp, "pallas_supported", lambda: True)
-    monkeypatch.setattr(ap, "_INTERPRET", False)
-    monkeypatch.delenv("LOAM_EXTRACT_BATCH", raising=False)
-    # all-fallback stages: engages the fence AND keeps the per-frame
-    # program pure-XLA (no interpret-mode bitonic compile) so this stays
-    # in the fast gate
-    params = FeatureExtractionParams(
-        sector_sort="xla", feature_assemble="gather", greedy_nms="xla"
-    )
-    assert ex._batch_construct(params, jnp.float32) == "map"
-    assert ex._batch_construct(FeatureExtractionParams(), jnp.float32) == "vmap"
-    monkeypatch.setenv("LOAM_EXTRACT_BATCH", "vmap")
-    assert ex._batch_construct(params, jnp.float32) == "vmap"
-    monkeypatch.setenv("LOAM_EXTRACT_BATCH", "map")
-    assert ex._batch_construct(FeatureExtractionParams(), jnp.float32) == "map"
-    # and the fenced result equals the explicit lax.map result (CPU:
-    # every construct is exact, so this checks plumbing, not the bug)
-    monkeypatch.delenv("LOAM_EXTRACT_BATCH", raising=False)
-    fenced = ex.extract_features_batch(jnp.asarray(scans[:2]), LIDAR, params)
-    monkeypatch.setenv("LOAM_EXTRACT_BATCH", "map")
-    mapped = ex.extract_features_batch(jnp.asarray(scans[:2]), LIDAR, params)
-    for a, b in zip(
-        jax.tree_util.tree_leaves(fenced), jax.tree_util.tree_leaves(mapped)
-    ):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_extract_batch_env_override(monkeypatch, traj_data):
-    """LOAM_EXTRACT_BATCH=vmap overrides the fence (A/B escape hatch) and
-    =map forces map even for the production config; both must agree on CPU
-    (where every construct is exact)."""
-    from loam_tpu.features import extract as ex
-
-    scans, _ = traj_data
-    js = jnp.asarray(scans[:3])
-    monkeypatch.setenv("LOAM_EXTRACT_BATCH", "vmap")
-    a = ex.extract_features_batch(js, LIDAR)
-    monkeypatch.setenv("LOAM_EXTRACT_BATCH", "map")
-    b = ex.extract_features_batch(js, LIDAR)
-    for x, y in zip(
-        jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)
-    ):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
 def test_packed_codec_custom_fov():
     """The codec parameters (elev_lo/elev_hi) must be honored end-to-end:
     encode/decode with a non-default vertical FOV reconstructs within the
@@ -395,7 +294,7 @@ def test_streaming_push_api_matches_batch(traj_data):
     """StreamingOdometry (live push API) must produce the same poses as
     odometry_streaming over the same frames, with frames handed out in
     order and exactly once."""
-    from loam_tpu.odometry import StreamingOdometry
+    from loam_jax.odometry import StreamingOdometry
 
     scans, _ = traj_data
     ref, _ = odometry_streaming(scans, LIDAR, chunk_frames=4, packed=True)

@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from loam_tpu.ops import twofloat as tf
+from loam_jax.ops import twofloat as tf
 
 
 @pytest.fixture(scope="module")
